@@ -13,7 +13,7 @@ random points in ONE compiled program (`optimize_auglag` with a rank-2
 x0 — the masked-lockstep constrained fleet, round 5) and checks every
 lane lands on the same KKT point.
 
-Run: python examples/constrained_map.py   (CPU or TPU)
+Run: python examples/constrained_map.py   (CPU or GPU)
 """
 
 import jax
@@ -21,15 +21,16 @@ import jax.numpy as jnp
 import numpy as np
 
 import quasinewtonmethods_jl_tpu as qnm
+from quasinewtonmethods_jl_tpu.utils.device import default_dtype, on_accelerator
 
-if jax.default_backend() != "tpu":
+if not on_accelerator():
     jax.config.update("jax_enable_x64", True)
 
 
 def main():
     rng = np.random.default_rng(11)
     d = 8
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = default_dtype()
     tol = 1e-3 if dtype == jnp.float32 else 1e-8
 
     mu_r = jnp.asarray(rng.normal(0.05, 0.04, d), dtype)  # expected returns

@@ -6,7 +6,7 @@ whose inner computation is a full MAP solve — differentiable thanks to
 
     log_scale* = argmax_ls  val_loglik( w_MAP(log_scale) )
 
-Run: python examples/empirical_bayes.py   (CPU or TPU)
+Run: python examples/empirical_bayes.py   (CPU or GPU)
 """
 
 import jax
@@ -14,10 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 
 import quasinewtonmethods_jl_tpu as qnm
+from quasinewtonmethods_jl_tpu.utils.device import default_dtype, on_accelerator
 
-# f64 parity mode off-TPU: examples assume float64 semantics on CPU (the
+# f64 parity mode on the CPU: examples assume float64 semantics on CPU (the
 # reference's native precision); jax keeps x64 off by default.
-if jax.default_backend() != "tpu":
+if not on_accelerator():
     jax.config.update("jax_enable_x64", True)
 
 
@@ -25,7 +26,7 @@ if jax.default_backend() != "tpu":
 def main():
     rng = np.random.default_rng(0)
     dim, n_train, n_val = 12, 60, 200
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = default_dtype()
 
     w_true = jnp.asarray(rng.standard_normal(dim) * 0.7, dtype)
     Xtr = jnp.asarray(rng.standard_normal((n_train, dim)), dtype)

@@ -3,16 +3,16 @@
 The reference library's stated purpose (its README): the inner
 MAP/mode-finding engine for ProbabilityModels.jl + InplaceDHMC.jl — find the
 posterior mode for many chains, then sample. This example shows that
-workflow TPU-natively:
+workflow on an accelerator:
 
   1. a fleet of BFGS solves finds the MAP from many random starts at once
-     (one XLA computation, MXU/VPU-saturating);
+     (one XLA computation);
   2. the converged inverse-Hessian approximations B⁻¹ (≈ posterior
      covariance at the mode, since the objective is a log-density) seed the
      HMC mass matrix;
   3. chains start at mode + B^(1/2)-shaped jitter.
 
-Run: python examples/hmc_initialization.py   (CPU or TPU)
+Run: python examples/hmc_initialization.py   (CPU or GPU)
 """
 
 import jax
@@ -20,11 +20,12 @@ import jax.numpy as jnp
 import numpy as np
 
 import quasinewtonmethods_jl_tpu as qnm
+from quasinewtonmethods_jl_tpu.utils.device import default_dtype, on_accelerator
 from quasinewtonmethods_jl_tpu.models import LogisticRegressionMAP
 
-# f64 parity mode off-TPU: examples assume float64 semantics on CPU (the
+# f64 parity mode on the CPU: examples assume float64 semantics on CPU (the
 # reference's native precision); jax keeps x64 off by default.
-if jax.default_backend() != "tpu":
+if not on_accelerator():
     jax.config.update("jax_enable_x64", True)
 
 
@@ -33,7 +34,7 @@ def main():
     n_chains = 64
     dim = 32
 
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = default_dtype()
     tol = 1e-3 if dtype == jnp.float32 else 1e-8
     model = LogisticRegressionMAP(dimension=dim, n_obs=300, dtype=dtype)
 
@@ -99,7 +100,7 @@ def main():
 
     # 5. alternative: ChEES-HMC (qnm.chees_sample) — trajectory length and
     # diagonal mass learned ACROSS the chain fleet (no per-chain U-turn
-    # trees; the TPU-native take on NUTS adaptivity). Useful when no dense
+    # trees; the lockstep-fleet take on NUTS adaptivity). Useful when no dense
     # B is on hand or n is too big to want one.
     chees = qnm.chees_sample(
         model,

@@ -4,10 +4,10 @@ The deployment shape the framework is built for: a service receives
 batches of MAP problems (here: posterior modes for incoming model fits),
 runs them as one lockstep fleet on the accelerator, survives preemption
 via checkpoints, and spreads over every available chip with a data-parallel
-mesh. Everything below runs unmodified from 1 CPU to a TPU pod slice —
+mesh. Everything below runs unmodified from 1 CPU to a multi-GPU host —
 only the mesh size changes.
 
-Run: python examples/production_fleet.py   (CPU or TPU)
+Run: python examples/production_fleet.py   (CPU or GPU)
 """
 
 import tempfile
@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import quasinewtonmethods_jl_tpu as qnm
+from quasinewtonmethods_jl_tpu.utils.device import default_dtype, on_accelerator
 from quasinewtonmethods_jl_tpu.models import LogisticRegressionMAP
 from quasinewtonmethods_jl_tpu.parallel import (
     distributed as dist,
@@ -30,20 +31,20 @@ from quasinewtonmethods_jl_tpu.utils import (
     solve_stats,
 )
 
-# f64 parity mode off-TPU: examples assume float64 semantics on CPU (the
+# f64 parity mode on the CPU: examples assume float64 semantics on CPU (the
 # reference's native precision); jax keeps x64 off by default.
-if jax.default_backend() != "tpu":
+if not on_accelerator():
     jax.config.update("jax_enable_x64", True)
 
 
 def main():
-    on_tpu = jax.default_backend() == "tpu"
-    dtype = jnp.float32 if on_tpu else jnp.float64
-    tol = 3e-3 if on_tpu else 1e-8
+    on_accel = on_accelerator()
+    dtype = default_dtype()
+    tol = 3e-3 if on_accel else 1e-8
     say = lambda *a: print(*a, flush=True)
 
     # 0. multi-host init (no-op on a single host) + data-parallel mesh over
-    #    every local device; on a pod slice this is the whole slice.
+    #    every local device; on a multi-host cluster, every device of it.
     dist.initialize()
     n_dev = len(jax.devices())
     mesh = make_mesh({"data": n_dev})
@@ -58,7 +59,7 @@ def main():
     # 2. first serving leg — run a bounded number of iterations per leg so
     #    the service can checkpoint between legs (preemption safety)
     leg = optimize_batched_sharded(
-        model, starts, mesh, tol=tol, max_iterations=8, kernel="xla"
+        model, starts, mesh, tol=tol, max_iterations=8
     )
     say(f"leg 1: {solve_stats(leg)}")
 
@@ -70,7 +71,7 @@ def main():
         save_state(ckpt, leg.state)
         restored = load_state(ckpt, qnm.BFGSState)
     final = qnm.optimize_batched_fused_from_state(
-        model, restored, tol=tol, kernel="xla"
+        model, restored, tol=tol
     )
     say(f"resumed to completion: {solve_stats(final)}")
 

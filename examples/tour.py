@@ -1,6 +1,6 @@
 """Executable tour of the public API — every entry point in ~a minute.
 
-Run: python examples/tour.py    (CPU or TPU; CPU uses f64 + tol 1e-8)
+Run: python examples/tour.py    (CPU or GPU; CPU uses f64 + tol 1e-8)
 """
 
 import jax
@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import quasinewtonmethods_jl_tpu as qnm
+from quasinewtonmethods_jl_tpu.utils.device import default_dtype, on_accelerator
 from quasinewtonmethods_jl_tpu import parallel as par
 from quasinewtonmethods_jl_tpu.models import (
     IllConditionedQuadratic,
@@ -24,16 +25,16 @@ from quasinewtonmethods_jl_tpu.utils import (
 )
 
 
-# f64 parity mode off-TPU: examples assume float64 semantics on CPU (the
+# f64 parity mode on the CPU: examples assume float64 semantics on CPU (the
 # reference's native precision); jax keeps x64 off by default.
-if jax.default_backend() != "tpu":
+if not on_accelerator():
     jax.config.update("jax_enable_x64", True)
 
 
 def main():
-    on_tpu = jax.default_backend() == "tpu"
-    dtype = jnp.float32 if on_tpu else jnp.float64
-    tol = 1e-3 if on_tpu else 1e-8
+    on_accel = on_accelerator()
+    dtype = default_dtype()
+    tol = 1e-3 if on_accel else 1e-8
     key = jax.random.PRNGKey(0)
     say = lambda *a: print(*a, flush=True)
 
@@ -180,7 +181,7 @@ def main():
         rs = par.optimize_batched_sharded(
             rosenbrock_logdensity,
             jax.random.normal(key, (mesh.shape["data"] * 8, 8), dtype),
-            mesh, tol=tol, kernel="xla")
+            mesh, tol=tol)
         say(f"batched_sharded:     {int(jnp.sum(rs.status == 1))} converged over "
             f"{mesh.shape['data']} devices")
     else:

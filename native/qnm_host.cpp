@@ -1,6 +1,6 @@
 // qnm_host — native host-side BFGS maximizer.
 //
-// The TPU framework's CPU-native runtime component: a zero-allocation
+// The framework's CPU-native runtime component: a zero-allocation
 // (steady-state) BFGS maximizer with the same numerical contract as the JAX
 // drivers and the reference library (chriselrod/QuasiNewtonMethods.jl,
 // reference semantics at src/QuasiNewtonMethods.jl:237-292 — maximization,
@@ -9,7 +9,7 @@
 // the compiler auto-vectorizes the fused loops (-O3 -march=native), playing
 // the role LoopVectorization plays for the reference.
 //
-// Why it exists in a TPU framework:
+// Why it exists in an accelerator framework:
 //   * single low-latency solves: no XLA compile, ~100x less dispatch
 //     overhead than any JIT path — this is what beats the reference's
 //     330 us/solve headline benchmark on its own terms (CPU, n=60);
@@ -1228,7 +1228,7 @@ double qnm_auglag_optimize(
 }
 
 // Benchmark convenience: the threaded fleet on the built-in Rosenbrock —
-// the host-side counterpart of the TPU fleet benchmark (no Python in the
+// the host-side counterpart of the accelerator fleet benchmark (no Python in the
 // hot path, so the pool actually scales).
 int32_t qnm_bfgs_optimize_rosenbrock_batch(
     int32_t n, int32_t batch, const double* x0s, int32_t order, double tol,

@@ -1,20 +1,20 @@
-"""quasinewtonmethods_jl_tpu — TPU-native quasi-Newton log-density maximization.
+"""quasinewtonmethods_jl_tpu — accelerator-native quasi-Newton log-density maximization.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
-chriselrod/QuasiNewtonMethods.jl (reference mounted at /root/reference):
-BFGS maximization of statistical log-densities with a backtracking
-(quadratic/cubic) line search, built for MAP/mode-finding workloads such as
-HMC chain initialization — re-designed TPU-first rather than ported:
+A JAX/XLA framework with the capabilities of
+chriselrod/QuasiNewtonMethods.jl: BFGS maximization of statistical
+log-densities with a backtracking (quadratic/cubic) line search, built for
+MAP/mode-finding workloads such as HMC chain initialization — re-designed
+for an accelerator rather than ported:
 
   * the two-callback protocol (logdensity / ∂logdensity!, reference
     src/QuasiNewtonMethods.jl:8-9) becomes a pure function + jax.value_and_grad
     (analytic override via ``value_and_grad_fn``);
   * the preallocated SIMD-padded ``BFGSState`` struct (:84-106) becomes a
     static-shape pytree carried through one jitted ``lax.while_loop``;
-  * the fused LoopVectorization rank-2 update kernel (:34-69) becomes a
-    VMEM-resident Pallas kernel (with a pure-jnp oracle);
-  * whole solves batch under ``jax.vmap`` (``optimize_batched``) and shard
-    over device meshes — the TPU answer to the reference's
+  * the fused LoopVectorization rank-2 update kernel (:34-69) becomes one
+    fused batch-minor update over an (n, n, batch) stack that XLA compiles;
+  * whole solves batch in masked lockstep (``optimize_batched``) and shard
+    over device meshes — the accelerator answer to the reference's
     one-state-per-thread ``PtrBFGSState`` design (:117-121);
   * an L-BFGS two-loop path covers the large-n regime the dense-B reference
     cannot reach.
@@ -93,7 +93,6 @@ from .pytree import (
     optimize_pytree,
     pytree_names,
 )
-from .resident_solve import optimize_batched_resident, resident_feasible
 from .diagnostics import (
     ChainDiagnostics,
     diagnose_chains,
@@ -238,8 +237,6 @@ __all__ = [
     "optimize_batched",
     "optimize_batched_compacted",
     "optimize_batched_fused",
-    "optimize_batched_resident",
-    "resident_feasible",
     "optimize_batched_fused_from_state",
     "optimize_from_state",
     "optimize_lbfgs",

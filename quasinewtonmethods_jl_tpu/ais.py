@@ -31,7 +31,7 @@ jumps; the hard stretch gets all the rungs. A remaining-budget floor
 cap (degrading gracefully to the linear ladder when the ESS target is
 unreachable), so the compiled program keeps a static trip bound.
 
-TPU shape: the particle fleet is one (N, n) batch advancing through a
+Accelerator shape: the particle fleet is one (N, n) batch advancing through a
 single `lax.scan` over rungs (fixed schedule) or a `lax.while_loop`
 with a static cap (adaptive) — every rung is one batched leapfrog (the
 tempered gradient is an affine combination of the analytic base gradient

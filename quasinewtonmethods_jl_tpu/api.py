@@ -6,7 +6,7 @@ filling the gradient in place (reference: src/QuasiNewtonMethods.jl:8-9) —
 plus the ``AbstractProbabilityModel{D}`` tag supertype (:14-19) that
 ProbabilityModels.jl hooks into.
 
-TPU-natively the protocol is: the user supplies a *pure* ``logdensity(θ)``
+on an accelerator the protocol is: the user supplies a *pure* ``logdensity(θ)``
 function and the library derives the gradient with ``jax.value_and_grad``
 (the analog of ∂logdensity!); an analytic/custom gradient is supported by
 passing ``value_and_grad_fn`` explicitly, exactly like extending
@@ -30,16 +30,16 @@ __all__ = ["ProbabilityModel", "as_value_and_grad", "as_logdensity"]
 def _pin_matmul_precision(fn):
     """Trace the objective under float32-accurate matmul precision.
 
-    On TPU, `dot_general` defaults to bfloat16 passes: an objective like
-    ``x @ (Q @ x)`` then carries ~1e-2-relative gradient noise, and a
-    gradient-norm tolerance of 1e-3 becomes UNREACHABLE — measured on a
-    v5e: a trivially conditioned dense quadratic fleet converged 255/256
-    in ~10 iterations on CPU and 0/256 on chip, same code, same dtype.
-    The solver's own kernels already pin Precision.HIGHEST for exactly
-    this reason (ops/pallas/bfgs_kernel.py); the user objective must get
-    the same treatment or the certificate max|∇| < tol is measuring
-    noise. Explicit per-op ``precision=`` in user code still wins (the
-    context only sets the default)."""
+    An accelerator's default float32 `dot_general` may run in reduced
+    precision (TF32 on an NVIDIA GPU keeps ~3 decimal digits): an
+    objective like ``x @ (Q @ x)`` then carries ~1e-3-relative gradient
+    noise, and a gradient-norm tolerance of 1e-3 becomes unreachable.
+    Under "highest" a GPU computes full float32 products, which is the
+    precision the certificates assume. The solver's own fused update pins
+    Precision.HIGHEST for the same reason (ops/bfgs.py); the user
+    objective gets the same treatment or the certificate max|∇| < tol is
+    measuring noise. Explicit per-op ``precision=`` in user code still
+    wins (the context only sets the default)."""
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
@@ -102,8 +102,8 @@ def as_value_fn(obj, value_and_grad_fn: Optional[Callable] = None):
     reference src/QuasiNewtonMethods.jl:157-162, which calls `logdensity`,
     NOT ∂logdensity!).
 
-    Performance-critical on TPU: a line-search trial must not pay for the
-    backward pass, and on real chips per-kernel launch overhead inside
+    Performance-critical on an accelerator: a line-search trial must not
+    pay for the backward pass, and per-kernel launch overhead inside
     `lax.while_loop` bodies dominates small-batch math — so we prefer the
     user's plain logdensity and only fall back to dropping the gradient of an
     explicit value_and_grad_fn when no value-only form exists.

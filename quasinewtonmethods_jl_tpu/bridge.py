@@ -21,7 +21,7 @@ no gradients, no extra HMC. It sees every basin the CHAINS visited
 mode-covering draws, the bridge turns them into evidence), unlike
 Laplace which integrates one basin by construction.
 
-TPU shape: the fixed point runs entirely on device as a
+Accelerator shape: the fixed point runs entirely on device as a
 `lax.while_loop` over two logsumexp reductions of precomputed (N,) log
 ratios — one fused elementwise+reduce program per iteration, nothing
 re-evaluates the model. All arithmetic is in log space (the iteration

@@ -22,7 +22,7 @@ then does the first-order multiplier updates λ ← λ + ρ h(x*),
 μ ← max(0, μ − ρ c(x*)) and grows ρ only when the KKT violation
 max(|h|, |min(c, μ/ρ)|) failed to shrink by ``viol_decrease``.
 
-TPU shape: ONE jitted program — the outer loop is a `lax.while_loop`
+Accelerator shape: ONE jitted program — the outer loop is a `lax.while_loop`
 whose body inlines the engine's full solve (itself a while_loop), so a
 20-outer-iteration constrained solve costs one compile and zero host
 round-trips. The inner objective closes over the loop-carried (λ, μ, ρ)
@@ -281,8 +281,6 @@ def optimize_auglag(
     history: int = 10,
     cg_method: str = "hz",
     value_and_grad_fn: Optional[Callable] = None,
-    kernel: str = "auto",
-    block_batch: int = 128,
     constraint_data=None,
 ) -> AugLagResult:
     """Maximize f(x) subject to eq(x) = 0 and ineq(x) >= 0.
@@ -331,12 +329,9 @@ def optimize_auglag(
     documented round-1 trip-count trap). ``lam0``/``mu0`` then accept
     either the per-constraint shape (m,) (broadcast across lanes) or
     per-lane (batch, m); every result leaf gains the leading batch
-    axis. ``kernel``/``block_batch`` select the BFGS inner fleet's
-    update kernel exactly as in `optimize_batched` ('auto' = Pallas on
-    TPU when feasible).
+    axis.
 
-    f32/TPU guidance — CHIP-MEASURED (v5e, 4096-lane n=60 fleets,
-    session r5b; STATUS.md has the table): tol = ctol = 1e-3 certifies
+    f32 guidance (4096-lane n=60 fleets): tol = ctol = 1e-3 certifies
     every lane; 1e-4 is the marginal edge (rare stragglers exhaust the
     outer budget); 1e-5 is beyond the f32 mantissa once ρ ladders (the
     augmented value's resolution drops below eps·|F| and the line
@@ -441,23 +436,13 @@ def optimize_auglag(
         # the fix, so it is the default for every line-search engine here
         ls = Wolfe(approx=True)
     if batched:
-        if engine == "bfgs":
-            from .batched_solve import _auto_kernel
-
-            on_tpu = jax.default_backend() == "tpu"
-            if kernel == "auto":
-                kernel = "pallas" if on_tpu else "xla"
-            kernel, block_batch = _auto_kernel(
-                kernel, x0.shape[1], x0.dtype.itemsize, block_batch
-            )
         return _auglag_fleet_core(
             obj, x0, eqw, inw, lam, mu,
             jnp.asarray(rho0, dtype), float(tol), float(ctol),
             jnp.asarray(rho_growth, dtype),
             jnp.asarray(viol_decrease, dtype), jnp.asarray(rho_max, dtype),
             engine, value_and_grad_fn, ls, max_outer, max_iterations,
-            history, cg_method, kernel, int(block_batch),
-            cdata=constraint_data,
+            history, cg_method, cdata=constraint_data,
         )
     return _auglag_core(
         obj, x0, eqw, inw, lam, mu,
@@ -518,7 +503,7 @@ def _fleet_penalty_fns(eq, ineq, vag_f, f_val, dtype, has_data=False):
 
 
 def _run_fleet_bfgs(F_vag_b, F_b, X, active, ls, tol, max_iterations,
-                    update_fn, dtype):
+                    dtype):
     from .batched_solve import _fresh_bfgs_carry, _solve_loop_batched
 
     status0 = jnp.where(
@@ -526,8 +511,7 @@ def _run_fleet_bfgs(F_vag_b, F_b, X, active, ls, tol, max_iterations,
     )
     carry0 = _fresh_bfgs_carry(X, status0)
     fc = _solve_loop_batched(
-        F_vag_b, F_b, carry0, ls, tol, max_iterations, update_fn,
-        h0_scale=True, stall_limit=STALL_LIMIT_DEFAULT,
+        F_vag_b, F_b, carry0, ls, tol, max_iterations, h0_scale=True, stall_limit=STALL_LIMIT_DEFAULT,
     )
     return fc.X, fc.status, fc.iterations, fc.n_fev
 
@@ -625,45 +609,18 @@ def _run_fleet_tr(vag_f, pen_one, X, lam, mu, rho, active, tol,
     static_argnames=(
         "obj", "eq", "ineq", "engine", "value_and_grad_fn", "ls",
         "max_outer", "max_iterations", "history", "cg_method",
-        "tol", "ctol", "kernel", "block_batch",
+        "tol", "ctol",
     ),
 )
 def _auglag_fleet_core(
     obj, x0s, eq, ineq, lam0, mu0, rho0, tol, ctol, rho_growth,
     viol_decrease, rho_max, engine, value_and_grad_fn, ls, max_outer,
-    max_iterations, history, cg_method, kernel, block_batch, cdata=None,
+    max_iterations, history, cg_method, cdata=None,
 ):
     vag_f = as_value_and_grad(obj, value_and_grad_fn)
     f_val = as_value_fn(obj, value_and_grad_fn)
-    user_batch, n = x0s.shape
+    batch, n = x0s.shape
     dtype = x0s.dtype
-
-    # Pallas grid padding (BFGS kernels need lane count % block_batch == 0);
-    # padded lanes are born hard-frozen and stripped from the result
-    pad = (
-        (-user_batch) % block_batch
-        if engine == "bfgs" and kernel.startswith("pallas")
-        else 0
-    )
-    batch = user_batch + pad
-    if pad:
-        x0s = jnp.concatenate(
-            [x0s, jnp.broadcast_to(x0s[:1], (pad, n))]
-        )
-        lam0 = jnp.concatenate(
-            [lam0, jnp.broadcast_to(lam0[:1], (pad,) + lam0.shape[1:])]
-        )
-        mu0 = jnp.concatenate(
-            [mu0, jnp.broadcast_to(mu0[:1], (pad,) + mu0.shape[1:])]
-        )
-        if cdata is not None:
-            cdata = jax.tree_util.tree_map(
-                lambda l: jnp.concatenate(
-                    [l, jnp.broadcast_to(l[:1], (pad,) + l.shape[1:])]
-                ),
-                cdata,
-            )
-    pad_mask = jnp.arange(batch) >= user_batch
 
     me = lam0.shape[1]
     mi = mu0.shape[1]
@@ -682,13 +639,6 @@ def _auglag_fleet_core(
         if ineq is not None else None
     )
 
-    if engine == "bfgs":
-        from .batched_solve import _make_update_fn
-
-        update_fn = _make_update_fn(kernel, block_batch)
-    else:
-        update_fn = None
-
     def violation(H, C, mu, rho):
         v = jnp.zeros((batch,), dtype)
         if eq is not None:
@@ -702,7 +652,7 @@ def _auglag_fleet_core(
     def body(carry):
         (X, lam, mu, rho, vprev, k, n_outer, tot_it, tot_fev, succ, hard,
          inner_st) = carry
-        active = (~succ) & (~hard) & (~pad_mask)
+        active = (~succ) & (~hard)
 
         def F_b(Xv):
             return f_b(Xv) - pen_b(Xv, lam, mu, rho, *cd)
@@ -714,8 +664,7 @@ def _auglag_fleet_core(
 
         if engine == "bfgs":
             X1, st, it, fev = _run_fleet_bfgs(
-                F_vag_b, F_b, X, active, ls, tol, max_iterations,
-                update_fn, dtype,
+                F_vag_b, F_b, X, active, ls, tol, max_iterations, dtype,
             )
         elif engine == "lbfgs":
             X1, st, it, fev = _run_fleet_lbfgs(
@@ -768,7 +717,7 @@ def _auglag_fleet_core(
 
     def cond(carry):
         _X, _l, _m, _r, _v, k, _no, _ti, _tf, succ, hard, _st = carry
-        return (k < max_outer) & jnp.any((~succ) & (~hard) & (~pad_mask))
+        return (k < max_outer) & jnp.any((~succ) & (~hard))
 
     carry0 = (
         x0s.T, lam0.T, mu0.T,
@@ -814,6 +763,4 @@ def _auglag_fleet_core(
         inner_status=inner_st,
         last_value=fv,
     )
-    if pad:
-        res = jax.tree_util.tree_map(lambda a: a[:user_batch], res)
     return res

@@ -8,7 +8,7 @@ black-box, non-differentiable, or branchy targets none of the
 gradient-based samplers can touch, and its affine invariance makes it
 insensitive to linear correlation/scaling without any mass matrix.
 
-TPU shape: the walker ensemble IS the batch axis — the red-black
+Accelerator shape: the walker ensemble IS the batch axis — the red-black
 half-ensemble scheme (Foreman-Mackey et al. §3) updates each half as one
 fused batched step (one objective eval + elementwise accept per half), so
 a W-walker step is exactly two vmapped logdensity sweeps; no per-walker
@@ -22,8 +22,8 @@ partner pick:
     CLAUDE.md per-lane-gather poison class). A valid MH kernel for each
     fixed offset (the partner distribution is state-independent and the
     per-walker acceptance ratio is unchanged); partners are correlated
-    WITHIN a step, so mixing per step can be slightly slower — measured
-    on-chip before preferring it (see STATUS.md).
+    WITHIN a step, so mixing per step can be slightly slower — measure
+    before preferring it.
 
 Walkers are NOT independent chains — cross-walker R-hat from
 `diagnose_chains` is still a useful stationarity signal (emcee practice),

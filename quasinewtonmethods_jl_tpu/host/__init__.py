@@ -445,7 +445,7 @@ def rosenbrock_batch_host(
     threads: int = 0,
 ) -> HostBatchResult:
     """Threaded native fleet on the built-in Rosenbrock: the host-side
-    counterpart of the TPU fleet benchmark, and the native realization of
+    counterpart of the accelerator fleet benchmark, and the native realization of
     the reference's intended multi-thread pattern (one self-contained
     zero-allocation state per thread — PtrBFGSState,
     src/QuasiNewtonMethods.jl:117-121). Lanes are pulled from an atomic

@@ -71,7 +71,7 @@ def _lbfgs_loop(
     whole driver runs unmodified inside shard_map on parameter shards.
 
     ``direction_method``: 'compact' (Byrd–Nocedal–Schnabel; two small
-    matmuls + triangular solves — ~20x fewer sequential steps, the TPU
+    matmuls + triangular solves — ~20x fewer sequential steps, the
     default) or 'two_loop' (classic recursion; required for the sharded
     path, whose dot products must psum). Both produce identical directions
     to machine precision (tested)."""
@@ -233,7 +233,7 @@ def optimize_lbfgs(
 
     The O(m·n) large-n path (BASELINE.md config 5). Same callback protocol,
     line search, tolerances, and in-band status contract as `optimize`.
-    ``direction_method``: 'compact' (default; MXU-friendly BNS form) or
+    ``direction_method``: 'compact' (default; matmul-friendly BNS form) or
     'two_loop' (classic recursion). ``stall_limit=0`` disables the stall
     detector (exact reference behavior: crawl to the iteration cap).
     """

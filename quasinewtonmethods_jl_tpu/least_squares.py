@@ -1,4 +1,4 @@
-"""Levenberg–Marquardt nonlinear least squares — batched, TPU-first.
+"""Levenberg–Marquardt nonlinear least squares — batched, accelerator-first.
 
 Family extension beyond the reference: the reference is the quasi-Newton
 (secant) branch of smooth optimization (BFGS/DFP/SR1 + L-BFGS, reference
@@ -10,14 +10,14 @@ control instead. It is the workhorse for curve fitting and nonlinear
 regression — exactly the "fleet of small independent problems" shape this
 framework's batched engines are built for.
 
-TPU-native design decisions:
+accelerator-native design decisions:
 
   * **One masked-lockstep fleet engine** (the round-2 lesson: under vmap,
     nested data-dependent loops poison every lane — so, as in
     `batched_solve.py` / `lbfgs_batched_solve.py`, the fleet is a single
     `lax.while_loop` over (batch, ...) state with explicit `active`
     masks; a single solve is a batch of one).
-  * **The per-iteration hot path is batched MXU work**: J via one vmapped
+  * **The per-iteration hot path is batched matmul work**: J via one vmapped
     jacfwd/jacrev (n or m fused AD passes), JᵀJ as a (batch, n, m)@(m, n)
     einsum, the damped normal equations via batched Cholesky + two
     triangular solves. No scalar loops, no gathers.
@@ -162,7 +162,7 @@ def _make_jac_fleet(residual_fn: Callable, has_data: bool, jac_mode: str):
 
 def _grad_and_gn(r, J):
     """g = Jᵀr and JTJ = JᵀJ, batched, at f32-accurate precision (the
-    round-3 TPU matmul-precision trap applies to these contractions just
+    reduced-precision matmul trap applies to these contractions just
     as it does to user objectives — api._pin_matmul_precision)."""
     g = jnp.einsum("bmn,bm->bn", J, r, precision=_HIGHEST)
     JTJ = jnp.einsum("bmn,bmk->bnk", J, J, precision=_HIGHEST)
@@ -175,7 +175,7 @@ def _grad_and_gn(r, J):
 # (scipy.optimize.least_squares' convention, so `loss=`/`f_scale=` fixtures
 # transfer verbatim). ρ grows sub-quadratically, so large residuals
 # (outliers) stop dominating the fit. Everything stays batched elementwise
-# VPU work: per-residual weights, no sorting, no data-dependent shapes.
+# elementwise work: per-residual weights, no sorting, no data-dependent shapes.
 
 LM_LOSSES = ("linear", "huber", "soft_l1", "cauchy", "arctan")
 
@@ -240,7 +240,7 @@ def _make_fun_grad_gn(loss: str, f_scale: float):
 # --- box constraints ---------------------------------------------------------
 #
 # Projected Levenberg–Marquardt with an elementwise active set (the
-# dogbox strategy, TPU-shaped). Naive clip-LM (solve the full damped
+# dogbox strategy, accelerator-shaped). Naive clip-LM (solve the full damped
 # system, clip the step) CRAWLS when a bound is active: the Newton solve
 # couples coordinates, so a free coordinate's component is computed
 # assuming the blocked coordinate moves — it doesn't, the gain ratio
@@ -595,7 +595,7 @@ def least_squares(
     ``x0`` runs the masked-lockstep fleet engine — with ``data`` a pytree
     whose leaves carry the batch axis on front, this is the
     "fit 4096 curves in one launch" entry point (per-lane datasets, one
-    compiled program, batched MXU jacobians/Cholesky throughout).
+    compiled program, batched jacobians/Cholesky throughout).
 
     Convergence certificate: max|Jᵀr| < ``tol`` (the gradient of ½‖r‖² —
     the same gradient-norm contract as the reference driver,
@@ -642,7 +642,7 @@ def least_squares(
     solution — same contract as an overtight tol anywhere else in the
     library. tol >= 1e-7 is safe for f* = O(1) at f64.
 
-    f32/TPU guidance: as with every engine here, tol >= ~1e-3 at f32;
+    f32 guidance: as with every engine here, tol >= ~1e-3 at f32;
     f64-on-CPU is the high-accuracy mode.
     """
     X0 = jnp.asarray(x0)

@@ -16,7 +16,7 @@ matrix, or a callable evaluated over the draws here — because only the
 user's model knows how its density factorizes over observations; the
 library supplies everything after that point.
 
-TPU shape: one `vmap` of the static-shape PSIS smoother over the N
+Accelerator shape: one `vmap` of the static-shape PSIS smoother over the N
 observation columns (each is an (S,) sort + GPD quantile fill), then
 logsumexp reductions — a single jitted program, draws never leave the
 device.

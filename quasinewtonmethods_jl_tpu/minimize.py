@@ -105,7 +105,7 @@ def minimize(
     runs a single solve; a rank-2 (batch, n) x0 runs the batched fleet
     engine (`optimize_batched` / `optimize_lbfgs_batched`), with every
     result leaf carrying the batch axis. Extra keyword args pass through
-    to the underlying driver (e.g. ``kernel=`` / ``fold_eval=`` for
+    to the underlying driver (e.g. ``fold_eval=`` / ``backend=`` for
     batched BFGS, ``gram_precision=`` for batched L-BFGS).
 
     Constraints (the scipy-shaped surface): ``eq``/``ineq`` are
@@ -181,7 +181,7 @@ def minimize(
     if method == "bfgs":
         if batched:
             # the batched router keeps h0_scale at its engine default (on);
-            # pass kernel=/fold_eval=/backend= through kwargs
+            # pass fold_eval=/backend= through kwargs
             res = optimize_batched(
                 obj, x0, ls=ls_bt, tol=tol, max_iterations=max_iterations,
                 value_and_grad_fn=vag,

@@ -10,14 +10,13 @@ representative: estimate the drift vector w of the latent recursion
 by MAP over w with a N(0, prior_scale^2 I) prior (A, the observations, and
 sigma are fixed, seeded data). The log-posterior is strictly concave in
 w (the recursion is linear in w), has a closed-form optimum via the
-normal equations (used by the tests), and its traced form is exactly
-the scan-with-extensive-outputs shape the Mosaic dot-rewrite re-binds
-for the resident engine (ops/dot_rewrite.py; chip-verified).
+normal equations (used by the tests), and its traced form is a scan with
+a matvec body and extensive outputs.
 
 Reference analog: the callback protocol's "any smooth log-density"
 contract (src/QuasiNewtonMethods.jl:8-9) — sequential likelihoods are a
 natural member the reference never names because its CPU loops don't
-care about control-flow structure; TPU compilation does.
+care about control-flow structure; compiled accelerator code does.
 """
 
 from __future__ import annotations
@@ -48,7 +47,7 @@ class AR1DriftMAP(ProbabilityModel):
         ka, kw, ke = jax.random.split(jax.random.PRNGKey(seed), 3)
         A = jax.random.normal(ka, (n, n), dtype)
         # scale to the requested spectral radius (stable recursion) —
-        # on the HOST: general eig has no TPU lowering, and this is
+        # on the HOST: general eig has no accelerator lowering, and this is
         # seeded constant data, not traced compute
         import numpy as _np
 

@@ -18,6 +18,7 @@ from .ops.linesearch import BackTracking
 from .parallel.batch import optimize_batched
 from .solve import MAX_ITERATIONS_DEFAULT, OptimizeResult
 from .state import Status
+from .utils.device import default_dtype
 
 __all__ = ["MultistartResult", "optimize_multistart"]
 
@@ -80,7 +81,7 @@ def optimize_multistart(
     """
     if x0s is None:
         if dtype is None:
-            dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+            dtype = default_dtype()
         x0s = init_scale * jax.random.normal(key, (n_starts, dim), dtype)
     else:
         x0s = jnp.asarray(x0s)

@@ -1,4 +1,4 @@
-"""Numerics kernels: line search, BFGS/L-BFGS updates, Pallas hot paths."""
+"""Numerics kernels: line search, BFGS/L-BFGS updates."""
 
 from .bfgs import bfgs_update, bfgs_update_reference, initial_inv_hessian
 from .linesearch import BackTracking, LineSearchResult, backtracking_linesearch

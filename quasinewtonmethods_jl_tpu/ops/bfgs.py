@@ -1,6 +1,6 @@
 """Inverse-BFGS rank-2 update fused with search-direction computation.
 
-TPU-native re-expression of the reference's hot kernel `BFGS_update!`
+JAX re-expression of the reference's hot kernel `BFGS_update!`
 (reference: src/QuasiNewtonMethods.jl:34-69) and `initial_B⁻¹!` (:144-148).
 The reference fuses three SIMD loops: (1) y = grad_old - grad_new and sᵀy,
 (2) the B⁻¹y matvec with yᵀB⁻¹y, (3) the rank-2 inverse-Hessian update fused
@@ -8,10 +8,8 @@ with the next-direction matvec d = B⁻¹_new @ grad_new and the directional
 derivative m = gradᵀ d.
 
 Here the same algebra is expressed as a handful of jnp ops — XLA fuses the
-elementwise work into the matvecs, and for the batched hot path there is a
-Pallas kernel (ops/pallas/bfgs_kernel.py) that keeps the whole update
-VMEM-resident; this module is the numerics oracle that the Pallas kernel is
-tested against.
+elementwise work into the matvecs. `fused_bfgs_update_reference` is the
+batched (n, n, batch) form that the fleet engine runs.
 
 Sign conventions (maximization — the API contract with the HMC use case):
   y = grad_old - grad_new   (flipped vs. the textbook minimization form,
@@ -32,6 +30,7 @@ __all__ = [
     "initial_inv_hessian",
     "bfgs_update",
     "bfgs_update_reference",
+    "fused_bfgs_update_reference",
     "dfp_update",
     "sr1_update",
     "h0_gamma",
@@ -171,6 +170,83 @@ def sr1_update(
     d = B_new @ grad_new
     m = jnp.dot(d, grad_new, preferred_element_type=dtype)
     return B_new, d, m
+
+
+def fused_bfgs_update_reference(B, step, g, g_old, active, fresh=None):
+    """Batched fused update: the XLA update the fleet engine runs.
+
+    Shapes: B (n, n, batch); step/g/g_old (n, batch); active (1, batch)
+    float mask (1.0 = lane still running). Returns (B_out, d, m, reset):
+      * normal lanes: the rank-2 inverse-BFGS update with y = g_old - g,
+        d = B⁻¹_new g, m = gᵀ B⁻¹_new g (reference :36-67);
+      * reset lanes (m_pre <= 0, including the driver's first-iteration
+        m = -1 sentinel): B_out = I, d = g, m = ‖g‖² (reference :272-280).
+        NaN m_pre does NOT reset (IEEE in-band failure propagation);
+      * inactive lanes: B_out = B (frozen), d = 0, m = 1 (harmless).
+
+    The next direction and m come from closed forms (u = B⁻¹y/sᵀy,
+    w = sᵀg, v = gᵀu):
+      m_pre = gᵀB⁻¹_new g = gᵀBg + c₁w² − 2wv
+      d     = B⁻¹_new g    = Bg + (c₁w)s − w·u − v·s
+    (algebraically identical to the reference's fused third loop :56-67),
+    so no second matvec runs through B_new.
+
+    ``fresh`` (optional (1, batch) float mask): lanes whose B is a fresh
+    identity get the Barzilai–Borwein H0 scaling B <- (sᵀy/yᵀy)·B before the
+    update (Nocedal 6.20). Scaling is linear, so it is applied to the matvec
+    results and the update's B term rather than as an extra pass; frozen
+    lanes keep their raw B either way.
+    """
+    dtype = B.dtype
+    n = B.shape[0]
+    one = jnp.asarray(1.0, dtype)
+
+    s = step
+    y = g_old - g  # (n, batch)
+    sty = jnp.sum(s * y, axis=0, keepdims=True)  # (1, batch)
+    rho = one / sty
+    if fresh is None:
+        scale = jnp.ones_like(sty)
+    else:
+        yty = jnp.sum(y * y, axis=0, keepdims=True)
+        scale = h0_gamma(sty, yty, fresh > 0, dtype)
+    # Both matvecs from ONE stacked contraction — a single read of the
+    # (n, n, batch) tensor instead of two. Precision.HIGHEST keeps the
+    # contraction in full f32 (no reduced-precision passes).
+    yg = jnp.stack([y, g], axis=1)  # (n, 2, batch)
+    ByBg = scale[None] * jnp.einsum(
+        "rcb,rkb->kcb", B, yg, preferred_element_type=dtype,
+        precision=jax.lax.Precision.HIGHEST,
+    )  # (2, n, batch)
+    By, Bg = ByBg[0], ByBg[1]
+    ytBy = jnp.sum(By * y, axis=0, keepdims=True)
+    u = By * rho  # scaled B⁻¹y (reference :50)
+    c1 = (one + ytBy * rho) * rho  # (reference :54)
+
+    w = jnp.sum(s * g, axis=0, keepdims=True)  # sᵀg
+    v = jnp.sum(u * g, axis=0, keepdims=True)  # gᵀ(B⁻¹y/sᵀy)
+    gBg = jnp.sum(Bg * g, axis=0, keepdims=True)
+    m_pre = gBg + c1 * w * w - 2.0 * w * v  # gᵀB⁻¹_new g
+    d_upd = Bg + (c1 * w) * s - w * u - v * s  # B⁻¹_new g
+
+    gg = jnp.sum(g * g, axis=0, keepdims=True)
+    reset = (m_pre <= 0.0) & (active > 0)
+    do_upd = (~reset) & (active > 0)
+
+    B_upd = (
+        scale[None, :, :] * B
+        + c1[None, :, :] * (s[:, None, :] * s[None, :, :])
+        - u[:, None, :] * s[None, :, :]
+        - s[:, None, :] * u[None, :, :]
+    )
+    eye = (
+        jax.lax.broadcasted_iota(jnp.int32, (n, n), 0)
+        == jax.lax.broadcasted_iota(jnp.int32, (n, n), 1)
+    ).astype(dtype)[:, :, None]
+    B_out = jnp.where(do_upd[None, :, :], B_upd, jnp.where(reset[None, :, :], eye, B))
+    d = jnp.where(active > 0, jnp.where(reset, g, d_upd), jnp.zeros_like(g))
+    m = jnp.where(active > 0, jnp.where(reset, gg, m_pre), jnp.ones_like(m_pre))
+    return B_out, d, m, reset.astype(dtype)
 
 
 def bfgs_update_reference(B, s, grad_new, grad_old):

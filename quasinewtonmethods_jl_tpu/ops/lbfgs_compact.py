@@ -1,7 +1,7 @@
 """Compact-representation L-BFGS direction (Byrd–Nocedal–Schnabel 1994).
 
 Algebraically identical to the two-loop recursion (ops/lbfgs.py) but shaped
-for the TPU: the two-loop's 2m *sequential* dot-product steps per direction
+for an accelerator: the two-loop's 2m *sequential* dot-product steps per direction
 — ~40 dispatches per iteration for m=10, which measured as the dominant
 cost of batched L-BFGS fleets — become two (m, n) matmul contractions, two
 tiny (m, m) triangular solves, and a handful of elementwise ops:

@@ -1,6 +1,6 @@
 """Backtracking line search (quadratic / cubic interpolation), maximization form.
 
-TPU-native re-expression of the reference line search
+accelerator-native re-expression of the reference line search
 (reference: src/QuasiNewtonMethods.jl:72-80 `BackTracking`,
 :165-232 `linesearch!`). The reference's two imperative phases —
 (A) halve alpha until the objective is finite, (B) an Armijo

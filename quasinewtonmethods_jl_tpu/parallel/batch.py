@@ -3,13 +3,13 @@
 The reference's answer to many simultaneous solves is `PtrBFGSState` — carve
 one preallocated buffer into per-thread solver states and run them
 side-by-side on CPU threads (reference: src/QuasiNewtonMethods.jl:117-121,
-the multi-chain HMC-init workload of README.md:14). The TPU-native answer is
+the multi-chain HMC-init workload of README.md:14). The JAX answer is
 `jax.vmap` over the entire solve: every leaf of the BFGSState carry gains a
 leading batch axis, the two nested `lax.while_loop`s batch lockstep (JAX
 rewrites the predicate to "any lane still active" and freezes finished lanes
 by select), and the per-iteration work becomes batched matvecs/outer
-products that XLA maps onto the MXU/VPU. This is the headline-throughput
-path (BASELINE.md: >= 10k batched solves/sec/chip).
+products. On an accelerator ``backend="auto"`` takes the fused batch-minor
+engine (batched_solve.py) instead; see `utils.device`.
 
 Lockstep caveat (SURVEY.md §7 hard parts): a batch runs until its slowest
 lane converges; converged lanes are frozen (status != RUNNING short-circuits
@@ -38,6 +38,7 @@ from ..solve import (
     _solve_loop,
 )
 from ..state import init_bfgs_state, init_lbfgs_state
+from ..utils.device import default_fleet_backend
 
 __all__ = ["optimize_batched", "optimize_lbfgs_batched"]
 
@@ -72,7 +73,6 @@ def optimize_batched(
     max_iterations: int = MAX_ITERATIONS_DEFAULT,
     value_and_grad_fn: Optional[Callable] = None,
     backend: str = "auto",
-    kernel: str = "auto",
     stall_limit: int = STALL_LIMIT_DEFAULT,
     fold_eval: bool = False,
     unroll: int = 1,
@@ -86,10 +86,9 @@ def optimize_batched(
         batch axis; check ``result.status`` per-lane.
       backend: 'fused' = the native batch-minor driver (throughput path,
         batched_solve.py), 'vmap' = jax.vmap of the scalar solver, 'auto' =
-        fused on TPU, vmap elsewhere (the fused path is correct everywhere;
-        its layout advantages only pay off on TPU).
-      kernel: for the fused backend — 'pallas' (VMEM-resident fused update),
-        'xla' (closed-form jnp), 'auto' = pallas on TPU, xla elsewhere.
+        fused on an accelerator, vmap on the CPU
+        (`utils.device.default_fleet_backend`; the fused path is correct
+        everywhere).
 
     Returns:
       OptimizeResult pytree with leading batch dimension on every leaf.
@@ -98,17 +97,13 @@ def optimize_batched(
     if x0s.ndim != 2:
         raise ValueError(f"x0s must be (batch, n), got shape {x0s.shape}")
 
-    on_tpu = jax.default_backend() == "tpu"
     if backend == "auto":
-        backend = "fused" if on_tpu else "vmap"
+        backend = default_fleet_backend()
     if backend == "fused":
         from ..batched_solve import optimize_batched_fused
 
-        if kernel == "auto":
-            kernel = "pallas" if on_tpu else "xla"
-            # feasibility fallback handled inside optimize_batched_fused
         return optimize_batched_fused(
-            obj, x0s, ls, tol, max_iterations, value_and_grad_fn, kernel=kernel,
+            obj, x0s, ls, tol, max_iterations, value_and_grad_fn,
             stall_limit=stall_limit, fold_eval=fold_eval, unroll=unroll,
         )
     if backend != "vmap":

@@ -1,7 +1,7 @@
-"""Multi-host (DCN) initialization helpers.
+"""Multi-host initialization helpers.
 
 The reference has no distributed layer at all (SURVEY.md §2c); within one
-TPU slice, `parallel.mesh` covers everything over ICI. Across hosts, JAX's
+host, `parallel.mesh` covers every local device. Across hosts, JAX's
 own runtime does the heavy lifting — these helpers just make the framework's
 entry points host-aware so a fleet script is identical on 1 host or 64:
 
@@ -11,8 +11,9 @@ entry points host-aware so a fleet script is identical on 1 host or 64:
     res = optimize_batched_sharded(obj, x0s, mesh)   # global arrays
 
 Under multi-host JAX, every host runs the same program; jax.Arrays are
-globally sharded and the collectives ride ICI within a slice and DCN across
-slices — no framework code changes.
+globally sharded and XLA routes the collectives over the devices'
+interconnect within a host and the network across hosts — no framework
+code changes.
 """
 
 from __future__ import annotations
@@ -32,9 +33,10 @@ def initialize(
 ) -> None:
     """Initialize multi-host JAX if a cluster is configured; no-op otherwise.
 
-    With no arguments, relies on cluster auto-detection (TPU pods set the
-    environment automatically) and silently stays single-process when no
-    cluster environment is present.
+    With no arguments, initializes only when a coordinator address is
+    set in the environment (``COORDINATOR_ADDRESS`` or
+    ``JAX_COORDINATOR_ADDRESS``) and otherwise silently stays
+    single-process.
 
     Must be callable as the first JAX call of the program: the
     already-initialized guard inspects the distributed client directly —
@@ -45,14 +47,9 @@ def initialize(
         return
     explicit = coordinator_address is not None
     # Conservative auto-detect: require an actual coordinator address env.
-    # (TPU_WORKER_HOSTNAMES-style vars appear even on single-host setups.)
     auto = any(
         os.environ.get(v)
-        for v in (
-            "COORDINATOR_ADDRESS",
-            "JAX_COORDINATOR_ADDRESS",
-            "MEGASCALE_COORDINATOR_ADDRESS",
-        )
+        for v in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
     )
     if not (explicit or auto):
         return  # single host — nothing to do

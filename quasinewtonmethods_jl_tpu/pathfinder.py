@@ -19,7 +19,7 @@ This fills the reference ecosystem's chain-initialization role
 (reference README.md:14 — QuasiNewtonMethods.jl exists to initialize
 InplaceDHMC chains) with draws + a covariance metric rather than a point.
 
-TPU-native design decisions (not in the paper, which is sequential CPU):
+accelerator-native design decisions (not in the paper, which is sequential CPU):
 
 * **Running-argmax scan, O(m·n) memory.** The trajectory is a
   `lax.scan` over a static iteration budget; each step evaluates its

@@ -1,6 +1,6 @@
 """Evidence-grade polish: batched Newton refinement of a converged fleet.
 
-The f32 TPU fleet certifies max|∇| < 1e-3 (the documented throughput
+The f32 fleet certifies max|∇| < 1e-3 (the documented throughput
 contract); Laplace evidence and B-as-covariance want tighter modes. This
 module adds the polish stage: a few safeguarded exact-Hessian Newton
 steps on the CONVERGED lanes drive the gradient norm to the objective's
@@ -13,9 +13,8 @@ Precision reality (measured, documented in the polish result rather than
 hidden): in f32 the achievable max|∇| is set by the f32 evaluation noise
 of the gradient itself (cancellation at the mode), typically ~1e-5·scale
 for Rosenbrock-like objectives — NOT 0. For certified 1e-6+ gradients,
-run the polish in f64 (`dtype=jnp.float64`; requires x64 enabled — on
-TPU f64 is emulated and slow, but 2-3 steps on an already-converged
-fleet cost milliseconds) or use the native C++ host path
+run the polish in f64 (`dtype=jnp.float64`; requires x64 enabled — 2-3
+steps on an already-converged fleet are cheap) or use the native C++ host path
 (`host.optimize_host`, f64 end to end).
 
 Safeguards (all per-lane, in-band): a step is KEPT only if it is finite

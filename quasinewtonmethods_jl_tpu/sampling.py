@@ -4,7 +4,7 @@ reference library exists for, completed end to end.
 The reference is "the inner MAP/mode-finding engine intended for
 ProbabilityModels.jl + InplaceDHMC.jl (HMC chain initialization)"
 (reference README.md:14; SURVEY.md gestalt) — it finds the mode, and an
-external HMC machine takes over. This module is that machine's TPU-native
+external HMC machine takes over. This module is that machine's accelerator-native
 counterpart, designed around what the optimizer already produced:
 
   * the batched MAP result's iterates are the chain initializations
@@ -17,7 +17,7 @@ counterpart, designed around what the optimizer already produced:
     holds. No inversion is needed anywhere: momenta are drawn via the
     Cholesky of B (p = L⁻ᵀ z gives cov(p) = B⁻¹).
 
-Everything is batched the TPU way: `lax.scan` over steps, chains as a
+Everything is batched the accelerator way: `lax.scan` over steps, chains as a
 leading axis, one fused program for all chains; the maximization
 convention carries over unchanged (logdensity IS the log target).
 """
@@ -542,8 +542,8 @@ def hmc_sample(
     there is no straggler problem — unlike the solves).
 
     This is deliberately plain HMC, not NUTS: fixed path length keeps the
-    program free of data-dependent trip counts, which is what the TPU
-    wants; tune ``n_leapfrog`` to the problem scale.
+    program free of data-dependent trip counts, which is what a lockstep
+    fleet wants; tune ``n_leapfrog`` to the problem scale.
 
     The result carries a resumable `state`; `hmc_sample_from_state`
     continues (or checkpoint-chunks) the run trajectory-identically.
@@ -693,7 +693,7 @@ def _lowrank_mass_step(x, var_ema, lr_Q, lr_sig, upd, chains):
     CORRELATION — the per-coordinate scales ride the diag EMA, exactly
     as in plain diagonal adaptation (a scalar-γ core in raw coordinates
     measured *deeper* NUTS trees than diag on geomspaced scales).
-    Highest matmul precision: on TPU the default bf16 dots would feed
+    Highest matmul precision: reduced-precision default dots would feed
     metric-level noise straight into the kinetic energy. Shared by the
     ChEES and NUTS warmups (`adapt_mass='lowrank'`)."""
     with jax.default_matmul_precision("highest"):
@@ -1069,7 +1069,7 @@ def chees_sample(
     total_warmup: Optional[int] = None,
     mass_rank: int = 16,
 ) -> ChEESResult:
-    """Batched HMC with ChEES-adapted trajectory lengths — the TPU-native
+    """Batched HMC with ChEES-adapted trajectory lengths — the accelerator-native
     answer to NUTS.
 
     NUTS decides the trajectory length per chain by growing a binary tree
@@ -1313,13 +1313,13 @@ def _nuts_core(
     lever: each doubling costs 2^j gradient evaluations, so shallower
     trees on rescaled targets pay immediately.
 
-    TPU shape discipline: everything is hand-batched over the chains
+    fleet shape discipline: everything is hand-batched over the chains
     axis with explicit masks (like the fleet solvers) — trees double in
     lockstep, chains that have U-turned/diverged are frozen, and the two
     loops (doublings; leaves within a subtree) are `lax.while_loop`s
     with cross-chain any-reduces, so a round ends as soon as EVERY chain
     is done. The price of lockstep NUTS is that all chains wait for the
-    deepest tree each draw; `chees_sample` is the TPU-native alternative
+    deepest tree each draw; `chees_sample` is the accelerator-native alternative
     that avoids this by construction (see docs/design.md) — NUTS is here
     for parity with CPU/GPU workflows and for single/few-chain use.
 
@@ -1689,7 +1689,7 @@ def nuts_sample(
 ) -> NUTSResult:
     """Batched multinomial NUTS over lockstep chains — see `_nuts_core`
     for the full algorithm notes (iterative tree building, checkpoint
-    stack, fleet-diagonal mass adaptation, TPU shape discipline).
+    stack, fleet-diagonal mass adaptation, fleet shape discipline).
 
     ``adapt_mass`` accepts the same modes as `chees_sample`: True/diag,
     'dense' (full across-chain covariance EMA), and 'lowrank' (round 4:
@@ -1869,12 +1869,11 @@ def nuts_sample_depth_sorted(
     tighter regions of the target keep needing deeper trees — sorting
     chains by recent mean depth into ``groups`` sub-fleets cuts
     sum(group_size x group_max_work) below fleet_size x fleet_max_work.
-    Measured on a v5e (round 4, scripts/tpu_experiments_r4f.py): 1.22x
-    on Neal's funnel n=60 (4096 chains, depth spread [1, 9], leg-to-leg
-    persistence r = 0.90) with an unsorted-split control isolating the
-    dispatch cost; 0.75x LOSS on a depth-homogeneous correlated Gaussian
-    (spread [3.0, 3.3]) — which is why this entry point probes first and
-    only sorts when the geometry can pay.
+    It can pay on Neal's funnel (depth spread [1, 9], leg-to-leg
+    persistence r = 0.90) and loses on a depth-homogeneous correlated
+    Gaussian (spread [3.0, 3.3]), where the split only adds dispatch
+    cost — which is why this entry point probes first and only sorts
+    when the geometry can pay.
 
     Probe data: the NUTS warmup records per-chain tree-depth telemetry
     over the plan's two tail windows (``NUTSState.warm_dsum`` — free:

@@ -1,6 +1,6 @@
 """The BFGS maximization driver — one jitted `lax.while_loop`.
 
-TPU-native re-expression of the reference driver `optimize!`
+accelerator-native re-expression of the reference driver `optimize!`
 (reference: src/QuasiNewtonMethods.jl:237-292). The reference's imperative
 loop with mid-loop breaks and pointer swaps becomes a single
 `lax.while_loop` whose carry is the full BFGSState pytree; `break`s become
@@ -102,7 +102,7 @@ def _solve_loop(
     +2.4 us/iteration on XLA-CPU (the cond joins full-state operands
     including the (n, n) B) — for a 1.66x scalar-solve speedup (1139 ->
     688 us typical Rosenbrock n=60) with bitwise-identical values and
-    exact counter parity (scripts/cpu_scalar_census_r4.py).
+    exact counter parity.
 
     Trajectory semantics are unchanged: the body advances only states the
     while-condition proved RUNNING, so no masking is needed; a line-search

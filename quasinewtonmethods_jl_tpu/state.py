@@ -1,16 +1,16 @@
-"""Solver state pytrees — the TPU-native analog of the reference's BFGSState.
+"""Solver state pytrees — the accelerator-native analog of the reference's BFGSState.
 
 The reference packs all solver memory into one preallocated, SIMD-padded
 mutable struct of inline tuples (reference: src/QuasiNewtonMethods.jl:82-150,
 `BFGSState{P,T,L,LT}` with L = align(P, vector_width)) accessed through raw
-pointers. On TPU none of that machinery is needed: XLA owns buffers, shapes
+pointers. Under XLA none of that machinery is needed: XLA owns buffers, shapes
 are static under jit, and "views" become functional threading of a NamedTuple
 through a `lax.while_loop` carry. What *is* preserved:
 
   * every array is static-shape, so one compilation serves every solve;
   * the full solver state is a single flat pytree — trivially serializable
     (checkpoint/resume, utils/checkpoint.py) and trivially batchable
-    (`jax.vmap` maps over a leading axis of every leaf), which is the TPU
+    (`jax.vmap` maps over a leading axis of every leaf), which is the JAX
     replacement for the reference's `PtrBFGSState` carve-a-state-out-of-a-
     shared-buffer pattern (:117-121);
   * in-band status/failure signaling instead of exceptions (the reference

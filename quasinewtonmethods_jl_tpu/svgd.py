@@ -11,13 +11,13 @@ Stein direction
 second repulses them apart so the FLEET approximates the posterior
 instead of collapsing onto the mode (Liu & Wang 2016).
 
-TPU-first shape: the entire interaction is dense (B, B) linear algebra —
-the pairwise squared distances and both φ terms are MXU matmuls
+accelerator-first shape: the entire interaction is dense (B, B) linear algebra —
+the pairwise squared distances and both φ terms are matmuls
 (‖xi−xj‖² via the xxᵀ expansion; K@G and K@X contractions), the gradient
 fleet is one vmapped sweep, and the step loop is a fixed-length
 `lax.scan` (no data-dependent control flow anywhere — SVGD is
 deterministic given the particles, there is no accept/reject). O(B²·n)
-per step, exactly the arithmetic-intensity profile the MXU wants.
+per step, exactly the arithmetic-intensity profile matmul units want.
 
 Median-heuristic bandwidth is recomputed on device each step; steps use
 the paper's AdaGrad rule (per-coordinate, with the fudge factor) so one
@@ -66,14 +66,14 @@ class SVGDResult(NamedTuple):
 
 
 def _pairwise_sq(X):
-    """(B, B) squared distances via the xxᵀ expansion — one MXU matmul."""
+    """(B, B) squared distances via the xxᵀ expansion — one matmul."""
     sq = jnp.sum(X * X, axis=-1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (X @ X.T)
     return jnp.maximum(d2, 0.0)
 
 
 def _phi(X, G, d2, h):
-    """Kernel Stein direction for the whole fleet — all MXU contractions.
+    """Kernel Stein direction for the whole fleet — all matmul contractions.
 
     K_ij = exp(−‖x_i − x_j‖² / h);
     φ_i = (1/B)[ (KᵀG)_i + (2/h)(x_i·Σ_j K_ij − (KᵀX)_i ) ]  (K symmetric).
@@ -93,10 +93,9 @@ def _median_bandwidth(d2, B, dtype):
     """med(‖xi−xj‖²)/log(B+1), floored away from zero (a collapsed fleet
     must not divide by 0 — the floor re-inflates it via the repulsion).
 
-    The median is a SORT — measured on a v5e, sorting the full (B, B)
-    matrix dominated the whole step at B=4096 (43 ms/step; 12x WORSE
-    particle-throughput than B=256, while the actual Stein matmuls are
-    ~1 ms). Above _MEDIAN_CAP elements the median runs on a fixed-stride
+    The median is a SORT — sorting the full (B, B) matrix dominates the
+    whole step at large B, while the actual Stein matmuls are cheap.
+    Above _MEDIAN_CAP elements the median runs on a fixed-stride
     subsample (deterministic, static shapes — resume identity holds);
     the bandwidth is a heuristic, the subsampled estimate is within the
     heuristic's own noise."""
@@ -190,7 +189,7 @@ def svgd_sample(
     for NaN lanes). Composes with `transforms.transform_objective` for
     constrained posteriors the same way every sampler here does.
 
-    Honest accuracy guidance (measured, v5e, n=60 correlated Gaussian):
+    Honest accuracy guidance (measured, n=60 correlated Gaussian):
     SVGD nails locations (max|mean error| ~0.1 at 300 steps) but
     UNDERESTIMATES covariance in higher dimensions (~0.6-0.7 relative
     at n=60 — the known variance-collapse behavior; it shrinks slowly

@@ -7,7 +7,7 @@ What that workflow cannot do is sample a genuinely MULTIMODAL posterior:
 `multistart` finds the modes, but a single-temperature sampler started in
 one basin essentially never crosses to another, so mode weights come out
 wrong no matter how long it runs. Replica exchange is the standard fix —
-and it is a *perfect* TPU shape:
+and it is a *perfect* Accelerator shape:
 
   * the temperature ladder × chain fleet is one dense (K, C, n) batch —
     every replica advances through the SAME leapfrog program in lockstep
@@ -20,7 +20,7 @@ and it is a *perfect* TPU shape:
     independent tempering ladders — fleet-scale replica exchange for the
     price of one batched HMC step.
 
-Design choices (TPU-first, same contracts as the other samplers):
+Design choices (accelerator-first, same contracts as the other samplers):
 
   * one base HMC step per replica per round (velocity Verlet, shared
     static trip count `n_leapfrog`), per-TEMPERATURE step size adapted by
@@ -37,7 +37,7 @@ Design choices (TPU-first, same contracts as the other samplers):
     shrink), with both endpoints pinned (beta_0 = 1, beta_{K-1} =
     beta_min) and a decaying adaptation rate (Vousden, Farr & Mandel
     2016 style, re-anchored). A (K-1,) elementwise update per sweep —
-    free on the TPU. Frozen at sampling; the adapted ladder rides in
+    free on the device. Frozen at sampling; the adapted ladder rides in
     the state, so resume continues it;
   * the cached per-replica logdensity is stored UNTEMPERED — the HMC
     ratio multiplies by beta on the fly and the swap ratio

@@ -7,7 +7,7 @@ builds the unconstraining transform + log-Jacobian into the generated
 ``logdensity``/``∂logdensity!`` callbacks that QuasiNewtonMethods.jl
 consumes (reference: src/QuasiNewtonMethods.jl:8-9 defines only the
 callback protocol; README.md:14 names the ProbabilityModels.jl use case).
-This module is the TPU-native equivalent of that capability: pure,
+This module is the accelerator-native equivalent of that capability: pure,
 static-shape bijections z (unconstrained) -> x (constrained) with exact
 log|det J| accumulation, so every engine in this package — the scalar
 driver, the batched fleets, L-BFGS, the samplers, the one-call pipeline —

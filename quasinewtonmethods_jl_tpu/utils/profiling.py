@@ -2,7 +2,7 @@
 
 The reference's only performance instrumentation is BenchmarkTools
 transcripts in its README and commented-out @show lines (SURVEY.md §5).
-TPU-natively, the equivalents are:
+on an accelerator, the equivalents are:
 
   * `trace(...)` — a context manager around `jax.profiler` producing an
     XPlane/trace-viewer dump of the on-device solve (every kernel, every

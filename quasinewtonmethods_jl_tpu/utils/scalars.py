@@ -1,6 +1,6 @@
 """NaN-aware scalar helpers and precision constants.
 
-TPU-native re-expression of the reference's scalar utilities
+accelerator-native re-expression of the reference's scalar utilities
 (reference: src/QuasiNewtonMethods.jl:152-155). These are used to make the
 backtracking line search robust when interpolation produces NaN: `nanmin` /
 `nanmax` prefer the non-NaN argument so step clamping always yields a usable

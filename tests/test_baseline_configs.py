@@ -43,7 +43,7 @@ def test_config3_logistic_map_bfgs(rng):
 def test_config4_batched_rosenbrock_fleet(rng):
     """Batched fleet (scaled down for CPU CI: 128 lanes instead of 4096)."""
     X0 = jnp.asarray(rng.standard_normal((128, 16)))
-    res = qnm.optimize_batched(rosenbrock_logdensity, X0, backend="fused", kernel="xla")
+    res = qnm.optimize_batched(rosenbrock_logdensity, X0, backend="fused")
     assert np.all(np.asarray(res.status) == qnm.Status.CONVERGED)
     np.testing.assert_allclose(np.asarray(res.x), 1.0, rtol=1e-5)
 

@@ -2,8 +2,8 @@
 
 The key property (SURVEY.md §4 test plan): vmap-batch equivalence vs single
 solves, plus equivalence between the two batched execution engines (vmap of
-the scalar solver vs the native batch-minor driver) and between the Pallas
-kernel and its jnp oracle (interpret mode on CPU).
+the scalar solver vs the native batch-minor driver) and between the fused
+batched update and the single-lane reference update.
 """
 
 import jax
@@ -14,9 +14,8 @@ import pytest
 import quasinewtonmethods_jl_tpu as qnm
 from quasinewtonmethods_jl_tpu.batched_solve import optimize_batched_fused
 from quasinewtonmethods_jl_tpu.models import rosenbrock_logdensity
-from quasinewtonmethods_jl_tpu.ops.bfgs import bfgs_update
-from quasinewtonmethods_jl_tpu.ops.pallas.bfgs_kernel import (
-    fused_bfgs_update_batched,
+from quasinewtonmethods_jl_tpu.ops.bfgs import (
+    bfgs_update,
     fused_bfgs_update_reference,
 )
 
@@ -44,13 +43,10 @@ def test_vmap_batch_matches_single_solves(rng):
         )
 
 
-@pytest.mark.parametrize("kernel", ["xla", "pallas_interpret"])
-def test_fused_driver_converges(kernel, rng):
+def test_fused_driver_converges(rng):
     n, batch = 10, 32
     X0 = jnp.asarray(rng.standard_normal((batch, n)))
-    res = optimize_batched_fused(
-        rosenbrock_logdensity, X0, kernel=kernel, block_batch=16
-    )
+    res = optimize_batched_fused(rosenbrock_logdensity, X0)
     assert np.all(np.asarray(res.status) == qnm.Status.CONVERGED)
     np.testing.assert_allclose(np.asarray(res.x), 1.0, rtol=1e-5)
     assert float(jnp.max(jnp.abs(res.grad))) < 1e-8
@@ -62,7 +58,7 @@ def test_fused_matches_vmap_on_quadratic(rng):
     n, batch = 6, 8
     X0 = jnp.asarray(rng.standard_normal((batch, n)))
     r_vmap = qnm.optimize_batched(quad_logdensity, X0, backend="vmap")
-    r_fused = optimize_batched_fused(quad_logdensity, X0, kernel="xla")
+    r_fused = optimize_batched_fused(quad_logdensity, X0)
     assert np.all(np.asarray(r_vmap.status) == np.asarray(r_fused.status))
     np.testing.assert_allclose(
         np.asarray(r_vmap.x), np.asarray(r_fused.x), atol=1e-10
@@ -79,35 +75,12 @@ def test_fused_rosenbrock_matches_vmap_quality(rng):
     n, batch = 7, 16
     X0 = jnp.asarray(rng.standard_normal((batch, n)))
     r_vmap = qnm.optimize_batched(rosenbrock_logdensity, X0, backend="vmap")
-    r_fused = optimize_batched_fused(rosenbrock_logdensity, X0, kernel="xla")
+    r_fused = optimize_batched_fused(rosenbrock_logdensity, X0)
     # fp reassociation differences make trajectories diverge on Rosenbrock;
     # quality invariants must still match exactly.
     assert np.all(np.asarray(r_vmap.status) == qnm.Status.CONVERGED)
     assert np.all(np.asarray(r_fused.status) == qnm.Status.CONVERGED)
     np.testing.assert_allclose(np.asarray(r_fused.x), np.asarray(r_vmap.x), atol=1e-6)
-
-
-def test_pallas_interpret_matches_oracle(rng):
-    n, batch = 12, 32
-    B = np.zeros((n, n, batch))
-    for b in range(batch):
-        A = rng.standard_normal((n, n)) * 0.2
-        B[:, :, b] = A @ A.T + np.eye(n)
-    B = jnp.asarray(B)
-    s = jnp.asarray(rng.standard_normal((n, batch)) * 0.1)
-    g = jnp.asarray(rng.standard_normal((n, batch)))
-    y = s + 0.01 * jnp.asarray(rng.standard_normal((n, batch)))
-    gold = g + y
-    active = jnp.ones((1, batch)).at[0, :5].set(0.0)
-
-    fresh = jnp.zeros((1, batch)).at[0, 5:9].set(1.0)  # mix of scaled lanes
-    ref = fused_bfgs_update_reference(B, s, g, gold, active, fresh)
-    ker = fused_bfgs_update_batched(B, s, g, gold, active, fresh,
-                                    block_batch=16, interpret=True)
-    for a, b2, name in zip(ker, ref, ["B", "d", "m", "reset"]):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b2), atol=1e-10, err_msg=name
-        )
 
 
 def test_fused_oracle_matches_single_lane_update(rng):
@@ -162,18 +135,6 @@ def test_fused_reset_and_frozen_lane_semantics(rng):
         )
 
 
-def test_fused_pallas_padding(rng):
-    """batch not a multiple of block_batch: padding lanes must not leak."""
-    n, batch = 6, 13
-    X0 = jnp.asarray(rng.standard_normal((batch, n)))
-    res = optimize_batched_fused(
-        quad_logdensity, X0, kernel="pallas_interpret", block_batch=8
-    )
-    assert res.x.shape == (batch, n)
-    assert np.all(np.asarray(res.status) == qnm.Status.CONVERGED)
-    np.testing.assert_allclose(np.asarray(res.x), 0.0, atol=1e-8)
-
-
 def test_bfgs_unroll_is_trajectory_identical(rng):
     """unroll > 1 chains masked bodies per while step; every carry write
     is active-masked and the cap folds into was_active, so it must be
@@ -203,7 +164,7 @@ def test_batched_failure_lane_isolated(rng):
     n, batch = 6, 8
     X0 = np.asarray(rng.standard_normal((batch, n)))
     X0[3] = np.nan
-    res = optimize_batched_fused(quad_logdensity, jnp.asarray(X0), kernel="xla")
+    res = optimize_batched_fused(quad_logdensity, jnp.asarray(X0))
     status = np.asarray(res.status)
     assert status[3] == qnm.Status.NONFINITE_VALUE
     ok = np.ones(batch, bool)
@@ -289,7 +250,7 @@ def test_batched_resume_from_state(rng):
     import tempfile, os
 
     X0 = jnp.asarray(rng.standard_normal((16, 8)))
-    part = optimize_batched_fused(rosenbrock_logdensity, X0, kernel="xla",
+    part = optimize_batched_fused(rosenbrock_logdensity, X0,
                                   max_iterations=4)
     assert np.all(np.asarray(part.status) == qnm.Status.MAX_ITERATIONS)
     with tempfile.TemporaryDirectory() as d:
@@ -297,7 +258,7 @@ def test_batched_resume_from_state(rng):
         save_state(p, part.state)
         restored = load_state(p, qnm.BFGSState)
     res = optimize_batched_fused_from_state(
-        rosenbrock_logdensity, restored, kernel="xla"
+        rosenbrock_logdensity, restored
     )
     assert np.all(np.asarray(res.status) == qnm.Status.CONVERGED)
     np.testing.assert_allclose(np.asarray(res.x), 1.0, rtol=1e-5)

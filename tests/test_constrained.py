@@ -438,10 +438,9 @@ def test_fleet_infeasible_lane_in_band():
 
 
 def test_fleet_f32_chip_contract_shape():
-    """The f32 constrained contract, CPU-pinned at the chip-validated
-    operating point (v5e session r5a: 4096/4096 lanes certified at
-    tol=ctol=1e-3 on the n=60 disk-constrained Rosenbrock, both
-    engines): a smaller fleet of the same problem must certify at f32
+    """The f32 constrained contract, CPU-pinned at the accelerator
+    operating point (tol=ctol=1e-3 on the n=60 disk-constrained
+    Rosenbrock, both engines): a smaller fleet of the same problem must certify at f32
     with the violation within ctol and every converged lane ON the
     active sphere (‖x‖² = 30 < 60 makes the unconstrained optimum
     infeasible)."""

@@ -69,8 +69,10 @@ def test_example_runs(script):
 
 
 def test_bench_sharded_runs_virtual_mesh():
-    """The multi-chip DP scaling harness must at least run on the virtual
-    CPU mesh (shape-of-scaling validation; no hardware claim)."""
+    """The multi-device DP scaling harness measures accelerators only: as a
+    script on the CPU it must refuse (non-zero exit, no JSON rows). Its
+    timing function itself still runs on the virtual CPU mesh, so the
+    sharded fleet call it times stays covered without a GPU."""
     proc = subprocess.run(
         [sys.executable, str(ROOT / "bench_sharded.py"),
          "--per-device", "8", "--n", "6", "--reps", "1"],
@@ -85,9 +87,23 @@ def test_bench_sharded_runs_virtual_mesh():
             "HOME": "/tmp",
         },
     )
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    import json
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
+    assert "no accelerator" in proc.stderr
 
-    rows = [json.loads(l) for l in proc.stdout.strip().splitlines()]
-    assert [r["mesh"] for r in rows] == [1, 2, 4, 8]
-    assert all(r["solves_per_sec"] > 0 for r in rows)
+    sys.path.insert(0, str(ROOT))
+    try:
+        import bench_sharded
+    finally:
+        sys.path.remove(str(ROOT))
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from quasinewtonmethods_jl_tpu.parallel import make_mesh
+
+    for k in (1, 2, 4):
+        mesh = make_mesh({"data": k}, devices=jax.devices()[:k])
+        X = jnp.asarray(
+            np.random.default_rng(k).standard_normal((8 * k, 6)), jnp.float32
+        )
+        assert bench_sharded.time_fleet(mesh, X, reps=1) > 0

@@ -18,7 +18,7 @@ def test_n_equals_1():
     res_l = qnm.optimize_lbfgs(f, jnp.zeros(1))
     assert bool(res_l.converged)
 
-    res_b = qnm.optimize_batched(f, jnp.zeros((4, 1)), backend="fused", kernel="xla")
+    res_b = qnm.optimize_batched(f, jnp.zeros((4, 1)), backend="fused")
     assert np.all(np.asarray(res_b.status) == qnm.Status.CONVERGED)
 
 
@@ -62,7 +62,7 @@ def test_fuzz_batched_fused_random_dims(rng):
     for n in (3, 9, 17, 33):
         X0 = jnp.asarray(rng.standard_normal((16, n)))
         res = qnm.optimize_batched(
-            rosenbrock_logdensity, X0, backend="fused", kernel="xla"
+            rosenbrock_logdensity, X0, backend="fused"
         )
         assert np.all(np.asarray(res.status) == qnm.Status.CONVERGED), n
 

@@ -2,7 +2,7 @@
 
 The reference leaves its failure handling untested (SURVEY.md §4): NaN
 return, line-search exhaustion, non-finite logdensity, the m<=0 identity
-reset. These pin the in-band status contract of the TPU driver.
+reset. These pin the in-band status contract of the driver.
 """
 
 import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""fold_eval + compaction + adaptive Pallas block (round-2 throughput work).
+"""fold_eval + compaction (throughput options).
 
 fold_eval: trajectories must be unchanged (same trial points, same accepted
 alphas, gradient evaluated at the same points) while n_fev drops by ~the
@@ -21,16 +21,15 @@ from quasinewtonmethods_jl_tpu.batched_solve import (
     optimize_batched_compacted,
     optimize_batched_fused,
     optimize_batched_fused_from_state,
-    pallas_feasible_block,
 )
 from quasinewtonmethods_jl_tpu.models import rosenbrock_logdensity
 
 
 def test_fold_eval_same_trajectory_fewer_evals(rng):
     X0 = jnp.asarray(rng.standard_normal((24, 8)))
-    base = optimize_batched_fused(rosenbrock_logdensity, X0, kernel="xla")
+    base = optimize_batched_fused(rosenbrock_logdensity, X0)
     fold = optimize_batched_fused(
-        rosenbrock_logdensity, X0, kernel="xla", fold_eval=True
+        rosenbrock_logdensity, X0, fold_eval=True
     )
     assert np.all(np.asarray(fold.status) == np.asarray(base.status))
     np.testing.assert_array_equal(
@@ -56,10 +55,10 @@ def test_fold_eval_same_trajectory_fewer_evals(rng):
 def test_fold_eval_wolfe_same_trajectory(rng):
     X0 = jnp.asarray(rng.standard_normal((8, 6)))
     base = optimize_batched_fused(
-        rosenbrock_logdensity, X0, ls=qnm.Wolfe(), kernel="xla"
+        rosenbrock_logdensity, X0, ls=qnm.Wolfe()
     )
     fold = optimize_batched_fused(
-        rosenbrock_logdensity, X0, ls=qnm.Wolfe(), kernel="xla", fold_eval=True
+        rosenbrock_logdensity, X0, ls=qnm.Wolfe(), fold_eval=True
     )
     assert np.all(np.asarray(fold.status) == np.asarray(base.status))
     np.testing.assert_array_equal(
@@ -79,12 +78,12 @@ def test_resume_continues_trajectory(rng):
     lane-for-lane — the resume path continues the BFGS trajectory instead
     of restarting with steepest ascent."""
     X0 = jnp.asarray(rng.standard_normal((16, 8)))
-    long = optimize_batched_fused(rosenbrock_logdensity, X0, kernel="xla")
+    long = optimize_batched_fused(rosenbrock_logdensity, X0)
     part = optimize_batched_fused(
-        rosenbrock_logdensity, X0, kernel="xla", max_iterations=7
+        rosenbrock_logdensity, X0, max_iterations=7
     )
     res = optimize_batched_fused_from_state(
-        rosenbrock_logdensity, part.state, kernel="xla"
+        rosenbrock_logdensity, part.state
     )
     np.testing.assert_array_equal(
         np.asarray(res.status), np.asarray(long.status)
@@ -110,9 +109,9 @@ def test_resume_fresh_state_takes_steepest_first_step(rng):
     X0 = jnp.asarray(rng.standard_normal((6, 5)))
     fresh_state = jax.vmap(init_bfgs_state)(X0)
     res = optimize_batched_fused_from_state(
-        rosenbrock_logdensity, fresh_state, kernel="xla"
+        rosenbrock_logdensity, fresh_state
     )
-    direct = optimize_batched_fused(rosenbrock_logdensity, X0, kernel="xla")
+    direct = optimize_batched_fused(rosenbrock_logdensity, X0)
     assert np.all(np.asarray(res.status) == qnm.Status.CONVERGED)
     np.testing.assert_array_equal(
         np.asarray(res.iterations), np.asarray(direct.iterations)
@@ -126,10 +125,10 @@ def test_resume_fresh_state_takes_steepest_first_step(rng):
 def test_compacted_matches_fused(rng, fold):
     X0 = jnp.asarray(rng.standard_normal((64, 8)))
     long = optimize_batched_fused(
-        rosenbrock_logdensity, X0, kernel="xla", fold_eval=fold
+        rosenbrock_logdensity, X0, fold_eval=fold
     )
     comp = optimize_batched_compacted(
-        rosenbrock_logdensity, X0, kernel="xla", fold_eval=fold,
+        rosenbrock_logdensity, X0, fold_eval=fold,
         chunk=9, min_width=8,
     )
     np.testing.assert_array_equal(
@@ -166,11 +165,11 @@ def test_compacted_matches_fused(rng, fold):
 def test_compacted_respects_max_iterations(rng):
     X0 = jnp.asarray(rng.standard_normal((16, 12)))
     comp = optimize_batched_compacted(
-        rosenbrock_logdensity, X0, kernel="xla", chunk=5, min_width=8,
+        rosenbrock_logdensity, X0, chunk=5, min_width=8,
         max_iterations=11,
     )
     long = optimize_batched_fused(
-        rosenbrock_logdensity, X0, kernel="xla", max_iterations=11
+        rosenbrock_logdensity, X0, max_iterations=11
     )
     np.testing.assert_array_equal(
         np.asarray(comp.status), np.asarray(long.status)
@@ -195,36 +194,12 @@ def test_compacted_terminal_failures_not_resumed(rng):
         [jnp.full((4, 4), 200.0), jnp.asarray(rng.standard_normal((12, 4)))]
     )
     comp = optimize_batched_compacted(
-        sometimes_bad, X0, kernel="xla", chunk=4, min_width=8
+        sometimes_bad, X0, chunk=4, min_width=8
     )
-    long = optimize_batched_fused(sometimes_bad, X0, kernel="xla")
+    long = optimize_batched_fused(sometimes_bad, X0)
     np.testing.assert_array_equal(
         np.asarray(comp.status), np.asarray(long.status)
     )
     np.testing.assert_array_equal(np.asarray(comp.n_fev), np.asarray(long.n_fev))
 
 
-def test_pallas_feasible_block():
-    f32 = 4
-    assert pallas_feasible_block(60, f32, 128) == 128
-    # n=60 block=256 measured OOM -> the helper must not choose it
-    assert pallas_feasible_block(60, f32, 256) == 128
-    # Mosaic requires the minor (lane) block dim to be a multiple of 128
-    # (measured on v5e), so past the VMEM budget for block=128 the only
-    # option is the XLA fallback — never a sub-128 block
-    assert pallas_feasible_block(128, f32, 128) == 0
-    assert pallas_feasible_block(4096, f32, 128) == 0
-    # f64 at n=60 blows the block=128 budget too
-    assert pallas_feasible_block(60, 8, 128) == 0
-    assert pallas_feasible_block(40, 8, 128) == 128
-
-
-def test_auto_kernel_midsize_falls_back_to_xla():
-    from quasinewtonmethods_jl_tpu.batched_solve import _auto_kernel
-
-    assert _auto_kernel("pallas", 60, 4, 128) == ("pallas", 128)
-    # n = 128 now takes the plane-blocked kernel (round-2 continuation);
-    # past its win region the fused XLA update remains the fallback
-    assert _auto_kernel("pallas", 128, 4, 128) == ("pallas_blocked", 128)
-    assert _auto_kernel("pallas", 256, 4, 128) == ("xla", 128)
-    assert _auto_kernel("xla", 60, 4, 128) == ("xla", 128)

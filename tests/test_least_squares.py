@@ -185,7 +185,7 @@ def test_mixed_fleet_statuses():
 
 
 def test_f32_fleet_converges_at_relaxed_tol():
-    # the TPU numerical contract: f32 engines certify at tol >= ~1e-3
+    # the f32 numerical contract: f32 engines certify at tol >= ~1e-3
     res = qnm.least_squares(
         rosen_res, jnp.full((4, 8), -1.2, jnp.float32), tol=1e-3
     )

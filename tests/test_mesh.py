@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh.
 
-The standard JAX way to test shard_map/collectives without TPUs
+The standard JAX way to test shard_map/collectives without accelerators
 (SURVEY.md §4): conftest forces 8 host devices. These pin the two
 parallelism strategies: DP solve fleets and psum-sharded L-BFGS.
 """
@@ -40,9 +40,9 @@ def test_batched_sharded_matches_unsharded(rng):
     X0 = jnp.asarray(rng.standard_normal((batch, n)))
     mesh = make_mesh({"data": 8})
     res_sh = optimize_batched_sharded(
-        rosenbrock_logdensity, X0, mesh, kernel="xla"
+        rosenbrock_logdensity, X0, mesh
     )
-    res_un = qnm.optimize_batched(rosenbrock_logdensity, X0, backend="fused", kernel="xla")
+    res_un = qnm.optimize_batched(rosenbrock_logdensity, X0, backend="fused")
     assert np.all(np.asarray(res_sh.status) == qnm.Status.CONVERGED)
     np.testing.assert_allclose(np.asarray(res_sh.x), np.asarray(res_un.x), atol=1e-9)
     np.testing.assert_array_equal(

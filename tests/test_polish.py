@@ -14,7 +14,7 @@ from quasinewtonmethods_jl_tpu.polish import polish_newton
 
 
 def test_polish_drives_gradient_to_floor(rng):
-    """f32 fleet at the 1e-3 TPU contract, polished: Newton's quadratic
+    """f32 fleet at the 1e-3 fleet contract, polished: Newton's quadratic
     convergence reaches the evaluation floor in 3 steps (for Rosenbrock
     the mode x=1 is exactly representable, so the floor is literally 0)."""
     X = jnp.asarray(rng.standard_normal((16, 12)), jnp.float32)

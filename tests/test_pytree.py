@@ -80,7 +80,7 @@ def test_optimize_batched_pytree(rng):
         "w": jnp.asarray(rng.standard_normal((batch, 5))),
         "b": jnp.asarray(rng.standard_normal(batch)),
     }
-    params, res = qnm.optimize_batched_pytree(f, x0, backend="fused", kernel="xla")
+    params, res = qnm.optimize_batched_pytree(f, x0, backend="fused")
     assert np.all(np.asarray(res.status) == qnm.Status.CONVERGED)
     assert params["w"].shape == (batch, 5)
     assert params["b"].shape == (batch,)

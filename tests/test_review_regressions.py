@@ -167,19 +167,12 @@ def test_chain_init_from_map_jitter_without_key_raises(rng):
         chain_init_from_map(res, jitter=0.1)
 
 
-def test_unknown_kernel_message_lists_all_kernels():
-    from quasinewtonmethods_jl_tpu.batched_solve import _make_update_fn
-
-    with pytest.raises(ValueError, match="pallas_blocked"):
-        _make_update_fn("nope", 128)
-
-
 def test_objective_matmuls_traced_at_highest_precision():
-    """round-3 chip finding: TPU's default bf16 dot passes make a dense
-    quadratic's gradient noise ~1e-2-relative, so tol=1e-3 was UNREACHABLE
-    on chip (0/256 converged vs 255/256 on CPU, same code). The objective
-    wrappers must pin float32-accurate matmul precision, exactly like the
-    engine's own einsum does."""
+    """An accelerator's reduced-precision default dot passes (TF32 on a
+    GPU) put ~1e-3-relative noise on a dense quadratic's gradient, which
+    makes tol=1e-3 unreachable. The objective wrappers must pin
+    float32-accurate matmul precision, exactly like the engine's own
+    einsum does."""
     from quasinewtonmethods_jl_tpu.api import (
         as_value_and_grad, as_value_fn,
     )

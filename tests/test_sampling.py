@@ -144,7 +144,7 @@ def test_hmc_bad_mass_shape():
 
 
 # ---------------------------------------------------------------------------
-# ChEES-HMC (adaptive trajectory length — the TPU-native NUTS alternative)
+# ChEES-HMC (adaptive trajectory length — the lockstep NUTS alternative)
 # ---------------------------------------------------------------------------
 
 

@@ -1,4 +1,4 @@
-"""Convergence sweep — the TPU analog of the reference test suite.
+"""Convergence sweep — the JAX analog of the reference test suite.
 
 Mirrors test/runtests.jl:37-51: for every n in 2..24 (both parities, which
 exercises the odd-tail objective path) and both line-search orders, a solve
@@ -105,8 +105,8 @@ def test_reused_start_both_orders(rng):
 def test_float32_converges_with_relaxed_tol(rng):
     """f32 numerical contract: convergence to a tol consistent with eps(f32).
 
-    f64-on-TPU is emulated/slow, so the TPU throughput path runs f32; this
-    pins the f32 quality bar (documented in BASELINE.md targets).
+    The accelerator throughput path runs f32; this pins the f32 quality
+    bar.
     """
     x0 = jnp.asarray(rng.standard_normal(8), jnp.float32)
     res = qnm.optimize(rosenbrock_logdensity, x0, tol=1e-3)

@@ -87,7 +87,7 @@ def test_optimize_batched_stall_limit(backend):
     _assert_stalls_then_crawls(
         lambda stall_limit: qnm.optimize_batched(
             absorbed_value, X0, tol=TOL, max_iterations=CAP,
-            value_and_grad_fn=absorbed_vag, backend=backend, kernel="xla",
+            value_and_grad_fn=absorbed_vag, backend=backend,
             stall_limit=stall_limit,
         )
     )

@@ -1,7 +1,6 @@
 """AR(1)-with-drift state-space MAP fixture: the named representative of
 the scan-shaped log-density class (round 5). Closed-form optimum via the
-normal equations; solved by the scalar driver, the fleet engines, and —
-through the control-flow dot-rewrite — the resident engine."""
+normal equations; solved by the scalar driver and the fleet engines."""
 
 import jax
 import jax.numpy as jnp
@@ -43,23 +42,3 @@ def test_ar1_solved_by_scalar_and_fleet_engines(rng):
         np.testing.assert_allclose(
             np.asarray(rb.x), np.broadcast_to(w_map, (8, 6)), atol=1e-5
         )
-
-
-def test_ar1_resident_engine_scan_rewrite(rng):
-    """The fixture's raison d'être: its traced form is a scan with a
-    matvec body + extensive outputs — the exact shape the dot-rewrite
-    re-binds for Mosaic (chip-verified on v5e; interpret mode here)."""
-    from quasinewtonmethods_jl_tpu.resident_solve import (
-        optimize_batched_resident,
-    )
-
-    m = AR1DriftMAP(dimension=6, n_steps=24)
-    w_map = np.asarray(m.map_solution())
-    X0 = jnp.asarray(rng.standard_normal((8, 6)))
-    rr = optimize_batched_resident(
-        m, X0, tol=1e-6, block_batch=4, interpret=True
-    )
-    assert bool((np.asarray(rr.status) == 1).all())
-    np.testing.assert_allclose(
-        np.asarray(rr.x), np.broadcast_to(w_map, (8, 6)), atol=1e-5
-    )

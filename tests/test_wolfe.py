@@ -99,7 +99,7 @@ def test_wolfe_guarantees_positive_curvature_pairs(rng):
 def test_batched_wolfe_fleet(rng):
     X0 = jnp.asarray(rng.standard_normal((24, 10)))
     res = qnm.optimize_batched(
-        rosenbrock_logdensity, X0, ls=qnm.Wolfe(), backend="fused", kernel="xla"
+        rosenbrock_logdensity, X0, ls=qnm.Wolfe(), backend="fused"
     )
     assert np.all(np.asarray(res.status) == qnm.Status.CONVERGED)
     np.testing.assert_allclose(np.asarray(res.x), 1.0, rtol=1e-5)
@@ -111,7 +111,7 @@ def test_batched_wolfe_matches_scalar_on_quadratic(rng):
         return -0.5 * jnp.sum(diag * x * x)
 
     X0 = jnp.asarray(rng.standard_normal((6, 5)))
-    res_b = qnm.optimize_batched(quad, X0, ls=qnm.Wolfe(), backend="fused", kernel="xla")
+    res_b = qnm.optimize_batched(quad, X0, ls=qnm.Wolfe(), backend="fused")
     for b in range(6):
         res_s = qnm.optimize(quad, X0[b], ls=qnm.Wolfe())
         assert int(res_b.status[b]) == int(res_s.status) == qnm.Status.CONVERGED
@@ -146,8 +146,7 @@ def test_cubic_interp_beats_bisection_on_model_zoo(rng):
     for obj, X0 in zoo:
         for interp in ("cubic", "bisection"):
             res = qnm.optimize_batched(
-                obj, X0, ls=qnm.Wolfe(interp=interp), backend="fused",
-                kernel="xla", tol=1e-6,
+                obj, X0, ls=qnm.Wolfe(interp=interp), backend="fused", tol=1e-6,
             )
             st = np.asarray(res.status)
             assert np.all(
